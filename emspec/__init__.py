@@ -1,6 +1,6 @@
-"""emspec — TPU-native streaming spectrogram framework.
+"""emspec — streaming reassigned-spectrogram framework.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of effree/EM-Spec
+A ground-up JAX/XLA rebuild of the capabilities of effree/EM-Spec
 (real-time reassigned-spectrogram visualizer; see SURVEY.md for the full
 reference analysis).  Public API:
 

@@ -261,12 +261,9 @@ def cmd_stream(args) -> int:
 
 def cmd_doctor(args) -> int:
     """Environment self-check: one line per subsystem, ``ok``/``WARN``/
-    ``FAIL``.  The production troubleshooting entry point — everything
-    the maintenance contracts reference (the Mosaic/jax version pin, the
-    native ring, capture backends, the native-window shell, the update
-    manifest) reported in one place; ``--kernels`` additionally runs the
-    Pallas kernel validation suite (the documented jax-upgrade smoke
-    test, emspec/dsp/pallas/__init__.py)."""
+    ``FAIL``.  The production troubleshooting entry point — the JAX
+    backend, the native ring, capture backends, the native-window shell
+    and the update manifest reported in one place."""
     import platform
 
     fails = 0
@@ -287,13 +284,7 @@ def cmd_doctor(args) -> int:
                                  f"({devs[0].device_kind})")
     except Exception as e:                       # no usable backend at all
         row("FAIL", "jax backend", str(e))
-    from emspec.dsp.pallas import TESTED_JAX_VERSION
-    if jax.__version__ == TESTED_JAX_VERSION:
-        row("ok", "jax version", f"{jax.__version__} == Mosaic kernel pin")
-    else:
-        row("WARN", "jax version",
-            f"{jax.__version__} != kernel pin {TESTED_JAX_VERSION} — run "
-            f"emspec doctor --kernels on the TPU, then bump the pin")
+    row("ok", "jax version", jax.__version__)
 
     try:
         from emspec.native import lib as native
@@ -328,17 +319,6 @@ def cmd_doctor(args) -> int:
             else "up to date")
     else:
         row("ok", "update check", "no manifest configured (offline)")
-
-    if args.kernels:
-        from emspec.dsp.pallas.validate import validate_kernels
-        on_tpu = jax.default_backend() == "tpu"
-        try:
-            report = validate_kernels(quick=not args.full)
-            row("ok", "pallas kernels",
-                f"validated on {'TPU (Mosaic)' if on_tpu else 'interpreter'}"
-                f" (jax {report['jax_version']})")
-        except Exception as e:
-            row("FAIL", "pallas kernels", f"{type(e).__name__}: {e}")
 
     print(f"doctor: {'all checks passed' if fails == 0 else f'{fails} FAILURE(S)'}")
     return 1 if fails else 0
@@ -485,8 +465,8 @@ def cmd_bench(args) -> int:
         print(f"profiler trace written to {out}")
         return 0
     if args.stages:
-        # per-stage device-cost breakdown (SURVEY.md §5.5), scan-marginal
-        # prefix timing — emspec.bench.stages
+        # per-stage device-cost breakdown (SURVEY.md §5.5), prefix
+        # timing — emspec.bench.stages
         from emspec.bench.stages import stage_breakdown
         from emspec.config import Settings
         report = {
@@ -539,8 +519,10 @@ def main(argv=None) -> int:
         # spectrogram will automatically start visualizing your system
         # audio"]: a bare launch opens the window shell on auto capture
         argv = ["gui"]
+    from emspec.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     ap = argparse.ArgumentParser(prog="emspec",
-                                 description="TPU-native streaming spectrogram framework")
+                                 description="streaming reassigned-spectrogram framework")
     ap.add_argument("--version", action="version",
                     version=f"emspec {__version__}")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -581,16 +563,8 @@ def main(argv=None) -> int:
 
     pd = sub.add_parser(
         "doctor",
-        help="environment self-check (backend, jax/Mosaic pin, native "
-             "ring, capture, window shell; --kernels validates the "
-             "Pallas kernels)")
-    pd.add_argument("--kernels", action="store_true",
-                    help="run the Pallas kernel validation suite (the "
-                         "jax-upgrade smoke test; a real Mosaic "
-                         "compile+execute on TPU)")
-    pd.add_argument("--full", action="store_true",
-                    help="with --kernels: production shapes, not the "
-                         "quick ones")
+        help="environment self-check (JAX backend, native ring, capture, "
+             "window shell)")
     pd.set_defaults(fn=cmd_doctor)
 
     pa = sub.add_parser(

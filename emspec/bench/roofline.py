@@ -1,77 +1,56 @@
-"""Roofline / MFU accounting for the bench report (VERDICT round-1 #8,
-round-2 #7: the model must track the RESOLVED engine and be validated
-against the owned kernel ablations, not drift as formulas).
+"""Roofline accounting for the bench report.
 
-Per display column, estimates the arithmetic (FLOPs) and HBM traffic
-(bytes) of each pipeline stage from the structural configuration AND the
-engine the pipeline actually resolves to (fused Pallas four-step GEMMs
-on TPU vs XLA rfft off it — their flop counts differ by ~an order of
-magnitude, so a single formula cannot serve both).  The harness reports
-achieved TFLOP/s / GB/s and % of the chip's peak next to columns/sec —
-making arithmetic-intensity regressions visible.
+Per display column, estimates the arithmetic (FLOPs) and device-memory
+traffic (bytes) of each pipeline stage from the structural
+configuration.  The harness reports achieved TFLOP/s and GB/s and their
+share of the card's published peaks next to columns/sec.
 
-These are *model* numbers (documented formulas below), not counters: the
-TPU exposes no per-op flop counters through this environment.  Each
-stage carries a ``validation`` tag:
-
-* ``measured-r3``  — the formula reproduces a BENCH.md kernel-ablation
-  measurement within ~2× (pinned by the TPU-gated test
-  tests/test_tpu.py::test_roofline_model_matches_measured_kernels, which
-  re-times the kernels and checks the model's implied efficiency lands
-  in a physical band).
-* ``model-only`` — a documented estimate with no independent
-  measurement; trust for trends, not absolutes.
-
-v5e peaks used: 197 TFLOP/s bf16, ~49 TFLOP/s f32 (MXU), 819 GB/s HBM
-(public TPU v5e datasheet figures).
+These are *model* numbers (documented formulas below), not counters:
+trust them for trends, not absolutes.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-V5E_BF16_TFLOPS = 197.0
-V5E_F32_TFLOPS = 49.0
-V5E_HBM_GBS = 819.0
+# Published peaks by ``jax.Device.device_kind``.  Source: NVIDIA H100
+# Tensor Core GPU data sheet, SXM5 part, dense rates (no sparsity) at the
+# 700 W power limit; a card set below that limit cannot hold them.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {
+        "bf16_tflops": 989.0,
+        "tf32_tflops": 495.0,
+        "f32_tflops": 67.0,
+        "hbm_gbs": 3350.0,
+    },
+}
 
 
-def _fft4_chain_flops(n1: int, n2: int) -> float:
-    """One REAL-input fused four-step chain (emspec.dsp.pallas.fft4):
-    step 1 = 6 bf16 dots of (n1, n1)@(n1, n2), step 3 = 12 dots of
-    (n1, n2)@(n2, k2) with k2 = n2/2 sliced on the half path (n2 ≥ 256)
-    — matches the kernel's own cost_estimate within the same 2×."""
-    n = n1 * n2
-    k2 = n2 // 2 if n2 >= 256 else n2
-    return 6 * 2 * n * n1 + 12 * 2 * n1 * n2 * k2
+def peaks_for(device_kind: str) -> dict:
+    """Published peaks of ``device_kind``; an unknown device is an error,
+    never a default."""
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise ValueError(
+            f"no published peaks for device kind {device_kind!r} "
+            f"(known: {sorted(PEAKS)})") from None
 
 
 def stage_costs(pipe) -> dict:
-    """Per-stage {flops, bytes, validation} per emitted display column.
+    """Per-stage {flops, bytes} per emitted display column.
 
     Stage models (C = channels, per bank of size N with K kept bins
     after band-support slicing):
 
-    * analysis (fused TPU engine): two real four-step chains of bf16
-      split GEMMs per frame (_fft4_chain_flops) + ~45 VPU flops/bin of
-      stencil/corrections/quantize epilogue; bytes = frame in +
-      ids/contrib deposits out.  [measured-r3: BENCH.md stress ablation
-      puts the kernel at ~70% of the bf16 MXU peak]
-    * analysis (stencil/XLA): one complex N-FFT ≈ 5·N·log2(N) flops +
-      stencil recombination ≈ 12·K; pruned-DFT banks: 8·N·(K+2) GEMM
-      flops (the measured policy threshold's cost model).  [model-only]
-    * scatter (pallas): 2·passes·m·S_hi·128 GEMM flops over m = ΣK
-      deposits into S = P·rows cells; bytes = ids+contrib read + S out.
-      [measured-r3: the same ablation measured the kernel's I/O floor
-      at 620 GB/s of its 8·m traffic]
-    * scatter (segsum): 8 flops/deposit; traffic dominates (XLA
-      lowering varies).  [model-only]
+    * analysis (rfft): one complex N-FFT ≈ 5·N·log2(N) flops + stencil
+      recombination and corrections ≈ 42·K.
+    * scatter: 8 flops/deposit; traffic dominates (read the deposits,
+      read-modify-write the cells).
     * merge (natural): 2 gathers + lerp per row per bank ≈ 6·rows.
-      [model-only]
     * post chain + LUT: ≈ 25 flops/row (dB log10 counted as 10) + RGBA
-      out.  [model-only]
+      out.
     """
-    from emspec.dsp.fourstep import _FACTORS
-
     s = pipe.settings
     C = max(s.channels, 1)
     rows = pipe.rows
@@ -80,63 +59,38 @@ def stage_costs(pipe) -> dict:
 
     an_flops = 0.0
     an_bytes = 0.0
-    fused = False
     m_total = 0
     for n, (k_lo, k_hi) in zip(pipe.sizes, pipe.k_slices):
         K = k_hi - k_lo
         m_total += K
-        if enhanced and pipe._use_fused_deposits(n):
-            fused = True
-            n1, n2 = _FACTORS[n]
-            an_flops += C * (2 * _fft4_chain_flops(n1, n2) + 45 * K)
-            an_bytes += C * 4 * (n + 2 * K)       # frame in, ids+contrib out
-        elif enhanced and pipe._use_pruned_dft(n, k_lo, k_hi):
-            an_flops += C * (8 * n * (K + 2) + 45 * K)
-            an_bytes += C * 4 * (n + 2 * K)
-        else:
-            # stencil/XLA rfft analysis
-            an_flops += C * (2 * n + 5 * n * np.log2(n))
-            an_bytes += C * (4 * 2 * n + 8 * (n + 3 * K))
-            if enhanced:
-                an_flops += C * (12 * K + 30 * K)
-                an_bytes += C * 4 * 2 * K
-    stages["analysis"] = {
-        "flops": float(an_flops), "bytes": float(an_bytes),
-        "validation": "measured-r3" if fused else "model-only",
-    }
+        an_flops += C * (2 * n + 5 * n * np.log2(n))
+        an_bytes += C * (4 * 2 * n + 8 * (n + 3 * K))
+        if enhanced:
+            an_flops += C * (12 * K + 30 * K)
+            an_bytes += C * 4 * 2 * K
+    stages["analysis"] = {"flops": float(an_flops), "bytes": float(an_bytes)}
 
     if enhanced:
         S = (2 * pipe.reach + 1) * rows
-        if pipe.use_pallas_scatter:
-            s_hi = -(-((S + 127) // 128) // 8) * 8  # ceil(S/128) → mult of 8
-            stages["scatter"] = {
-                "flops": float(C * 2 * 2 * m_total * s_hi * 128),
-                "bytes": float(C * (8 * m_total + 4 * S)),
-                "validation": "measured-r3",
-            }
-        else:
-            stages["scatter"] = {
-                "flops": float(C * 8 * m_total),
-                "bytes": float(C * (8 * m_total + 4 * S) * 2),
-                "validation": "model-only",
-            }
+        stages["scatter"] = {
+            "flops": float(C * 8 * m_total),
+            "bytes": float(C * (8 * m_total + 4 * S) * 2),
+        }
     else:
         stages["merge"] = {
             "flops": float(C * 6 * rows * len(pipe.sizes)),
             "bytes": float(C * 4 * rows * len(pipe.sizes) * 3),
-            "validation": "model-only",
         }
 
     stages["post"] = {
         "flops": float(C * 25 * rows),
         "bytes": float(C * (4 * rows * 3 + 4 * rows)),
-        "validation": "model-only",
     }
     return stages
 
 
 def estimate_column_cost(pipe, stages: dict | None = None) -> dict:
-    """Summed FLOPs + HBM bytes per emitted display column."""
+    """Summed FLOPs + device-memory bytes per emitted display column."""
     if stages is None:
         stages = stage_costs(pipe)
     flops = sum(st["flops"] for st in stages.values())
@@ -146,27 +100,27 @@ def estimate_column_cost(pipe, stages: dict | None = None) -> dict:
             "deposits_per_col": int(max(pipe.settings.channels, 1) * m_total)}
 
 
-def roofline_report(pipe, cols_per_sec: float) -> dict:
-    """Achieved rates + % of v5e peaks for a measured throughput, with
-    per-stage estimates labeled by validation status."""
+def roofline_report(pipe, cols_per_sec: float, device_kind: str) -> dict:
+    """Achieved rates and their share of ``device_kind``'s published
+    peaks for a measured throughput, with the per-stage estimates."""
+    peak = peaks_for(device_kind)
     stages = stage_costs(pipe)           # once: headline sums and the
     est = estimate_column_cost(pipe, stages)   # breakdown always reconcile
     tflops = est["flops_per_col"] * cols_per_sec / 1e12
     gbs = est["bytes_per_col"] * cols_per_sec / 1e9
     return {
+        "device_kind": device_kind,
         "est_flops_per_col": round(est["flops_per_col"] / 1e6, 3),  # MFLOP
         "est_mb_per_col": round(est["bytes_per_col"] / 1e6, 4),
         "achieved_tflops": round(tflops, 3),
         "achieved_gbs": round(gbs, 2),
-        "pct_v5e_bf16_peak": round(100 * tflops / V5E_BF16_TFLOPS, 2),
-        "pct_v5e_f32_peak": round(100 * tflops / V5E_F32_TFLOPS, 2),
-        "pct_v5e_hbm_peak": round(100 * gbs / V5E_HBM_GBS, 2),
+        "pct_f32_peak": round(100 * tflops / peak["f32_tflops"], 2),
+        "pct_hbm_peak": round(100 * gbs / peak["hbm_gbs"], 2),
         "arith_intensity_flops_per_byte": round(
             est["flops_per_col"] / max(est["bytes_per_col"], 1.0), 2),
         "stages": {
             name: {"mflop_per_col": round(st["flops"] / 1e6, 3),
-                   "kb_per_col": round(st["bytes"] / 1e3, 2),
-                   "validation": st["validation"]}
+                   "kb_per_col": round(st["bytes"] / 1e3, 2)}
             for name, st in stages.items()
         },
     }

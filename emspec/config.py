@@ -30,12 +30,7 @@ from typing import Any
 # FFT sizes offered by the reference dropdown (reference: assets/settings.png
 # shows 4096 selected from a dropdown; north star requires 512..32768).
 # 65536/131072/262144 are the SURVEY §5.7 scaling extension ("32768 and
-# beyond"): the four-step factorizations (256, 256), (256, 512) and
-# (512, 512) stay MXU-shaped, so the fused TPU analysis kernel covers
-# them natively (validated on hardware like the production sizes, with a
-# documented depth-scaled split-bf16 tolerance —
-# emspec/dsp/pallas/validate.py; tests/test_fidelity_sweep.py pins CPU
-# fidelity).
+# beyond"; tests/test_fidelity_sweep.py pins their fidelity).
 FFT_SIZES = (512, 1024, 2048, 4096, 8192, 16384, 32768, 65536, 131072,
              262144)
 
@@ -83,35 +78,21 @@ class Settings:
     auto_gain: bool = True              # "Auto Gain" button = AGC enabled
     on_top: bool = False                # window always-on-top (shell flag; no-op here)
     agc_global: bool = False            # couple AGC across channels (one brightness
-                                        # for the whole display; cross-chip collective
+                                        # for the whole display; cross-device collective
                                         # when channels are sharded) [INF]
 
     # -------- analysis detail knobs (rebuild-specific, documented [INF]) --------
     freq_min: float = 20.0              # bottom of the log-frequency axis
-    fft_impl: str = "auto"              # FFT engine: "auto" (four-step MXU
-                                        # matmuls for enhanced single-bank on
-                                        # TPU, XLA rfft otherwise — measured
-                                        # policy, Pipeline.fft_impl),
-                                        # "fourstep", or "xla".  NOTE: the
-                                        # streaming==batch BIT-exact guarantee
-                                        # holds for "xla" (rfft is batch-shape-
-                                        # stable); "fourstep" agrees to float32
+    fft_impl: str = "auto"              # FFT engine: "auto" (= "xla", the
+                                        # rfft), "fourstep" (matmul FFT), or
+                                        # "xla".  NOTE: the streaming==batch
+                                        # BIT-exact guarantee holds for "xla"
+                                        # (rfft is batch-shape-stable);
+                                        # "fourstep" agrees to float32
                                         # rounding, tested.
     fft_method: str = "stencil"         # reassignment FFT formulation:
                                         # "stencil" (2 rffts + exact Hann
                                         # stencils) or "direct" (3 rffts)
-    scatter: str = "auto"               # reassignment scatter backend:
-                                        # "auto" (pallas on TPU), "pallas",
-                                        # or "segment_sum" (SURVEY §7 hard
-                                        # part 1: keep both, parity-tested)
-    scatter_passes: int = 2             # pallas scatter bf16 split terms:
-                                        # 2 (default) bounds the histogram
-                                        # error at 2^-16 relative; 1 is a
-                                        # display-grade mode (~4e-3 rel,
-                                        # invisible through the 8-bit LUT;
-                                        # measured only +6% on stress — the
-                                        # kernel is not purely pass-bound);
-                                        # 3 is f32-exact
     crossover_low: float = 200.0        # multires band edge: 8192-bank below
     crossover_high: float = 2000.0      # multires band edge: 512-bank above
     low_end_cutoff: float = 200.0       # Low-End-Boost ramp corner frequency
@@ -181,17 +162,13 @@ class Settings:
                 f"{self.channels} channel(s)")
         if not (0.0 <= self.smoothing < 1.0):
             raise ValueError("smoothing must be in [0, 1)")
-        if self.scatter not in ("auto", "pallas", "segment_sum"):
-            raise ValueError(f"unknown scatter backend: {self.scatter!r}")
-        if self.scatter_passes not in (1, 2, 3):
-            raise ValueError("scatter_passes must be 1, 2 or 3")
         if self.fft_method not in ("stencil", "direct"):
             raise ValueError(f"unknown fft_method: {self.fft_method!r}")
         if self.fft_impl not in ("auto", "fourstep", "xla"):
             raise ValueError(f"unknown fft_impl: {self.fft_impl!r}")
         for n in self.multires_sizes:
-            # power-of-two ≥ 256: every kernel tile policy (Pallas windowing
-            # n_tile, fourstep factorization, frame slice-concat) assumes it
+            # power-of-two ≥ 256: the fourstep factorization and the
+            # frame slice-concat assume it
             if n < 256 or (n & (n - 1)) != 0:
                 raise ValueError(
                     f"multires_sizes must be powers of two >= 256, got {n}")
@@ -234,7 +211,7 @@ class Settings:
 STRUCTURAL_FIELDS = frozenset({
     "fft_size", "sample_rate", "channels", "mode", "multires",
     "multires_sizes", "raster_height", "raster_width", "hop", "agc_global",
-    "scatter", "scatter_passes", "fft_method", "fft_impl",
+    "fft_method", "fft_impl",
     # analysis-geometry knobs: they shape the precomputed merge tables and
     # the per-bank band-support slices, so changing them re-specializes
     # (freq_scale zoom stays continuous — support is zoom-independent)

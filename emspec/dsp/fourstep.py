@@ -1,11 +1,10 @@
-"""Four-step (Bailey / Cooley-Tukey) FFT as MXU matmuls.
+"""Four-step (Bailey / Cooley-Tukey) FFT as matmuls.
 
-XLA's TPU FFT runs on the VPU at ~20 GFLOP/s and is the measured
-bottleneck of the hot path (BENCH.md).  The four-step decomposition
-N = N1·N2 turns the transform into two *small dense matmuls* (N1² and N2²
-DFT matrices, VMEM-resident) + one elementwise twiddle — exactly what the
-MXU is built for (SURVEY.md §7 anticipated this as the "4-step
-decomposition" escape hatch).
+The four-step decomposition N = N1·N2 turns the transform into two
+*small dense matmuls* (N1² and N2² DFT matrices) + one elementwise
+twiddle (SURVEY.md §7 anticipated this as the "4-step decomposition"
+escape hatch).  It is selectable as ``Settings.fft_impl="fourstep"``;
+"auto" resolves to XLA's rfft.
 
 With x reshaped row-major to (N1, N2), n = N2·n1 + n2, k = k1 + N1·k2:
 
@@ -15,13 +14,12 @@ With x reshaped row-major to (N1, N2), n = N2·n1 + n2, k = k1 + N1·k2:
     out[k1 + N1·k2] = X[k1, k2]
 
 Complex arithmetic is explicit (separate real/imag matmuls) with
-``Precision.HIGHEST`` so results hold float32 accuracy — the default TPU
-matmul precision is bf16 multiplies, which would wreck the reassignment
-corrections.
+``Precision.HIGHEST`` so results hold float32 accuracy — a lower
+precision lets the GPU multiply in TF32, which would wreck the
+reassignment corrections.
 
-Bit-stability note: the per-frame computation is identical for a single
-streaming frame and a batched (t, n) call (contraction dims ≤ 256 are
-fixed-order on the MXU), preserving streaming ≡ batch — asserted in
+Streaming and batch agree to float32 rounding, not bitwise (matmul
+accumulation order may depend on the batch shape) — asserted in
 tests/test_fourstep.py.
 """
 
@@ -33,8 +31,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-# factorizations: lane-friendly (second factor ≥ first, multiples of 8/128
-# where possible)
+# factorizations: near-square, second factor ≥ first
 _FACTORS = {
     256: (16, 16),
     512: (16, 32), 1024: (32, 32), 2048: (32, 64), 4096: (64, 64),
@@ -64,66 +61,42 @@ def supported(n: int) -> bool:
 
 
 def _mm(a, b):
-    """(..., m, k) @ (k, n) — full-precision MXU matmul.
+    """(..., m, k) @ (k, n) — full-precision matmul.
 
     All leading/batch dims fold into M: one big GEMM instead of a batched
-    stack of tiny ones (a (90, 128, 64)@(64, 64) batched matmul dispatches
-    90 MXU-starved GEMMs; (11520, 64)@(64, 64) is a single streaming
-    pass — this folding is where the four-step FFT's speed comes from).
+    stack of tiny ones ((11520, 64)@(64, 64) rather than ninety
+    (128, 64)@(64, 64) products).
     """
     lead = a.shape[:-1]
     out = jnp.matmul(a.reshape(-1, a.shape[-1]), b, precision=_HI)
     return out.reshape(lead + (b.shape[-1],))
 
 
-def fft_fourstep(z_r: jnp.ndarray, z_i: jnp.ndarray,
-                 use_pallas: bool | None = None
+def fft_fourstep(z_r: jnp.ndarray, z_i: jnp.ndarray
                  ) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Full complex DFT of z = z_r + i·z_i, shape (..., n) → (..., n).
-
-    use_pallas: None (auto — the fused steps-1–3 Pallas kernel on TPU for
-    MXU-shaped factorizations, emspec/dsp/pallas/fft4.py), or True/False
-    to force a path (tests)."""
+    """Full complex DFT of z = z_r + i·z_i, shape (..., n) → (..., n)."""
     n = z_r.shape[-1]
     n1, n2 = _FACTORS[n]
     lead = z_r.shape[:-1]
     xr = z_r.reshape(lead + (n1, n2))
     xi = z_i.reshape(lead + (n1, n2))
+    C1, S1, TWr, TWi, C2, S2 = (jnp.asarray(t) for t in _tables(n))
 
-    if use_pallas is None:
-        if jax.default_backend() == "tpu":
-            from emspec.dsp.pallas import fft4
-            use_pallas = fft4.supported(n1, n2)
-        else:
-            use_pallas = False
-    if use_pallas:
-        # import inside the branch: the pure-XLA path must stay usable
-        # even if a jax upgrade moves the Mosaic APIs (CLAUDE.md risk)
-        from emspec.dsp.pallas import fft4
-        b = int(np.prod(lead)) if lead else 1
-        Xr, Xi = fft4.fft4_steps123(xr.reshape(b, n1, n2),
-                                    xi.reshape(b, n1, n2))
-        Xr = Xr.reshape(lead + (n1, n2))
-        Xi = Xi.reshape(lead + (n1, n2))
-    else:
-        C1, S1, TWr, TWi, C2, S2 = (jnp.asarray(t) for t in _tables(n))
+    # step 1: A = (C1 − i·S1) @ x, contraction over n1 — expressed as a
+    # direct dot_general over the -2 axis (einsum) so XLA chooses layouts
+    # instead of materializing four explicit transposes
+    def dot1(m, x):
+        return jnp.einsum("kj,...jn->...kn", m, x, precision=_HI)
+    Ar = dot1(C1, xr) + dot1(S1, xi)                   # C1@xr + S1@xi
+    Ai = dot1(C1, xi) - dot1(S1, xr)                   # C1@xi − S1@xr
 
-        # step 1: A = (C1 − i·S1) @ x, contraction over n1 — expressed as
-        # a direct dot_general over the -2 axis (einsum) so XLA chooses
-        # layouts instead of materializing four explicit transposes
-        # (measured 25% faster at the stress shape, BENCH.md round 2)
-        def dot1(m, x):
-            return jnp.einsum("kj,...jn->...kn", m, x, precision=_HI)
-        Ar = dot1(C1, xr) + dot1(S1, xi)               # C1@xr + S1@xi
-        Ai = dot1(C1, xi) - dot1(S1, xr)               # C1@xi − S1@xr
+    # step 2: twiddle (k1, n2) elementwise
+    Br = Ar * TWr + Ai * TWi
+    Bi = Ai * TWr - Ar * TWi
 
-        # step 2: twiddle (k1, n2) elementwise
-        Br = Ar * TWr + Ai * TWi
-        Bi = Ai * TWr - Ar * TWi
-
-        # step 3: X[k1, k2] = Σ_{n2} B[k1, n2]·(C2 − i·S2)[n2, k2]
-        Xr = _mm(Br, C2) + _mm(Bi, S2)
-        Xi = _mm(Bi, C2) - _mm(Br, S2)
+    # step 3: X[k1, k2] = Σ_{n2} B[k1, n2]·(C2 − i·S2)[n2, k2]
+    Xr = _mm(Br, C2) + _mm(Bi, S2)
+    Xi = _mm(Bi, C2) - _mm(Br, S2)
 
     # step 4: out[k1 + N1·k2] → transpose (k2, k1) then flatten
     Xr = jnp.swapaxes(Xr, -1, -2).reshape(lead + (n,))
@@ -149,7 +122,7 @@ def rfft_fourstep(x: jnp.ndarray) -> jnp.ndarray:
     x2 = x.reshape(lead + (h, 2))
     Zr, Zi = fft_fourstep(x2[..., 0], x2[..., 1])      # N/2-point complex
     # Hermitian split at k = 0..N/2 (indices (−k) mod N/2) — concat+flip,
-    # not a gather (TPU gather trap)
+    # layout ops rather than a gather
     Zr_k = jnp.concatenate([Zr, Zr[..., :1]], axis=-1)  # Z(k), k=0..h
     Zi_k = jnp.concatenate([Zi, Zi[..., :1]], axis=-1)
     Zr_c = jnp.concatenate(                             # Re Z(h−k), k=0..h
@@ -182,8 +155,7 @@ def packed_pair_fft(a: jnp.ndarray, b: jnp.ndarray) -> tuple[jnp.ndarray, jnp.nd
     n = a.shape[-1]
     Zr, Zi = fft_fourstep(a, b)
     # conj(Z(N−k)) for k=0..K−1: index 0 maps to 0, else reversed —
-    # as concat+flip (layout ops), NOT an elementwise gather (the TPU
-    # gather trap, BENCH.md optimization log #1)
+    # as concat+flip (layout ops), not an elementwise gather
     Zr_c = jnp.concatenate([Zr[..., :1], jnp.flip(Zr[..., 1:], -1)], axis=-1)
     Zi_c = -jnp.concatenate([Zi[..., :1], jnp.flip(Zi[..., 1:], -1)], axis=-1)
     k = n // 2 + 1

@@ -19,12 +19,10 @@ window ``dh/dn`` (see ``emspec.dsp.windows``):
 Each bin's power ``|X_h|²`` is scatter-added into the *reassigned* cell
 ``(round(t + Δt/hop), round(k + Δω·N/2π))`` of the (frames, bins) grid.
 
-TPU realization: data-dependent scatter is the one op XLA won't fuse well
-(SURVEY.md §3.2 "hottest kernel").  This module is the **correctness
-baseline**: flatten (t_bin·K + f_bin) ids and ``segment_sum`` them — safe,
-sorted-free, fully jittable.  The Pallas VMEM-tile kernel in
-``emspec.dsp.pallas.scatter`` is the fast path; both are parity-tested
-against each other and the float64 oracle (SURVEY.md §7 hard part 1).
+The scatter is a data-dependent scatter-add (SURVEY.md §3.2 "hottest
+kernel"): flatten (t_bin·K + f_bin) ids and ``segment_sum`` them
+(``emspec.dsp.histogram``) — sort-free and fully jittable, parity-tested
+against the float64 oracle (SURVEY.md §7 hard part 1).
 """
 
 from __future__ import annotations

@@ -48,6 +48,6 @@ def hann_derivative(n: int, dtype=np.float32) -> np.ndarray:
 
 
 def window_triple(n: int, dtype=np.float32) -> np.ndarray:
-    """Stacked ``(3, n)`` array ``[h, th, dh]`` — the layout consumed by the
-    fused windowing kernel (one VMEM pass applies all three)."""
+    """Stacked ``(3, n)`` array ``[h, th, dh]`` — the layout of the
+    direct method's one broadcast multiply over a ``(3, ..., n)`` stack."""
     return np.stack(_windows_np(n)).astype(dtype)

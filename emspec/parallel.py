@@ -111,9 +111,9 @@ class ShardedStream:
     post-chain state (both channel-sharded) — **donated** each hop,
     exactly like the single-chip Stream's executable.  Per hop only the
     ``hop`` NEW samples cross host→device (the audio-rate floor — the
-    same H2D design as Stream; BENCH.md item 45).  The scatter is
-    channel-local; with ``agc_global=True`` the per-hop cross-channel
-    max is the one ICI all-reduce (SURVEY.md §5.8).
+    same H2D design as Stream).  The scatter is channel-local; with
+    ``agc_global=True`` the per-hop cross-channel max is the one
+    all-reduce (SURVEY.md §5.8).
 
     Feed protocol (mirrors ``emspec.stream.Stream._stage_one``):
     ``reset_window(x[:, :n_max])`` primes the window for hop 0, then
@@ -241,9 +241,9 @@ class TimeParallelRenderer:
 
     Tolerance: the analysis interior is the batch computation on the
     same values; the post re-basing reassociates the EMAs — the same
-    ~1e-6 class as the associative scan the TPU batch path already
-    uses.  tests/test_parallel.py pins equality vs the single-device
-    batch on the virtual mesh, plus shard shapes (no silent
+    ~1e-6 class as the associative scan (``emspec.post.chain``).
+    tests/test_parallel.py pins equality vs the single-device batch on
+    the virtual mesh, plus shard shapes (no silent
     replication) and the collective census (exactly the two
     all_gathers + the final-state psum).
 
@@ -334,16 +334,10 @@ class TimeParallelRenderer:
                     if chax else P())
         sh_vis = P(ax, chax, None) if chax else P(ax)
         sh_rgba = P(ax, chax, None, None) if chax else P(ax)
-        # check_vma=False: the Pallas kernels (fused deposits, MXU
-        # scatter) declare no varying-mesh-axes metadata on their out
-        # shapes, which jax 0.9's vma checker rejects inside shard_map;
-        # the collective structure is pinned by test instead
-        # (test_time_parallel_render_collective_census)
         return jax.jit(shard_map(
             local_fn, mesh=self.mesh,
             in_specs=(sh_x, P(), sh_state),
             out_specs=(sh_vis, sh_rgba, sh_state),
-            check_vma=False,
         )), L, slice_len
 
     def render(self, x, state: PostState | None = None):

@@ -34,6 +34,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from emspec import engine
 from emspec.config import Settings
 
 DB_EPS = 1e-12        # guards log10(0)
@@ -92,23 +93,20 @@ def _ema_scan(y0: jnp.ndarray, alpha, xs: jnp.ndarray,
 
     associative=False: sequential ``lax.scan`` — bit-identical to the
     streaming per-column evolution (the CPU contract), unroll=8 because
-    the two-FMA body is cheaper than the scan's per-step loop overhead
-    (measured 1.38 → 0.60 ms for the whole post chain at t=1437).
+    the two-FMA body is cheaper than the scan's per-step loop overhead.
 
-    associative=True (TPU batch path): the affine recurrence composed by
+    associative=True: the affine recurrence composed by
     ``lax.associative_scan`` — O(log t) full-array sweeps instead of t
-    sequential steps (0.6 → ~0.1 ms at t=1437).  Reassociation changes
-    f32 rounding by ~log2(t)·ε relative (≈1e-6 at t=1437, measured — an
-    order under the display's 1/255 quantum and inside the established
-    on-TPU streaming ≡ batch tolerance contract; the CPU suite keeps the
-    bit-exact pin on the sequential path).
+    sequential steps.  Reassociation changes f32 rounding by ~log2(t)·ε
+    relative (~1e-6 at display-scale t — an order under the display's
+    1/255 quantum; the CPU suite keeps the bit-exact pin on the
+    sequential path).
     """
     b = (1.0 - alpha) * xs
     if xs.shape[0] == 0:
         # t = 0 (audio shorter than one frame): mimic a length-0 lax.scan
         # — empty ys, carry unchanged.  The associative branch below would
-        # raise on ys[-1] (ADVICE round 2, verified on the TPU backend
-        # where assoc_ref defaults on).
+        # raise on ys[-1].
         return b, y0
     if not associative:
         def step(y, bt):
@@ -177,24 +175,11 @@ def postprocess_batch(
     ``associative`` switches the EMA recurrences to a parallel
     associative scan (see :func:`_ema_scan` for the cost model and the
     tolerance note; on the associative path the bit-identical guarantee
-    above relaxes to ~1e-6 relative, within the on-TPU streaming ≡ batch
-    contract).  Default policy, measured on v5e: the associative form
-    trades ~2·log₂t full-array HBM sweeps for the sequential loop's
-    ~⌈t/8⌉ iteration overheads, so it wins only at display-scale t
-    (multires t=1437: post 0.6 → ~0.15 ms, whole call +22%) and loses
-    at t≈372 (r2048/natural: the unrolled loop is already ~0.1 ms) —
-    TPU with t ≥ 1024 picks associative, everything else sequential.
+    above relaxes to ~1e-6 relative).  ``None`` leaves the choice to
+    :func:`emspec.engine.associative_ema`, which decides by device.
     """
     if associative is None:
-        on_tpu = jax.default_backend() == "tpu"
-        # the AGC reference is a (t, [ch]) SCALAR series — its log-sweeps
-        # are microscopic, so associative wins at any t on TPU; the
-        # (t, …, rows) smoothing scan pays full-array HBM sweeps and only
-        # wins at display-scale t
-        assoc_ref = on_tpu
-        assoc_smooth = on_tpu and power_ts.shape[0] >= 1024
-    else:
-        assoc_ref = assoc_smooth = associative
+        associative = engine.associative_ema()
     # peak_db is (t, ...): global AGC couples the lead axes after t
     v_db, peak_db = _boost_db_peak(
         power_ts, p, global_agc, tuple(range(1, power_ts.ndim - 1)))
@@ -203,11 +188,11 @@ def postprocess_batch(
     # in f64 exactly as postprocess_column writes it, or the bit-exact
     # streaming ≡ batch pin breaks in the last mantissa bit
     refs, ref_final = _ema_scan(state.agc_ref, AGC_DECAY,
-                                peak_db, assoc_ref)
+                                peak_db, associative)
     vis = _agc_gate_norm(v_db, refs, p)                            # 4-6
 
     smoothed, smooth_final = _ema_scan(state.smooth, p.smoothing, vis,
-                                       assoc_smooth)               # 7
+                                       associative)                # 7
     out = _brightness_clip(smoothed, p)                            # 8
     return out, PostState(smooth=smooth_final, agc_ref=ref_final)
 
@@ -260,9 +245,9 @@ def postprocess_batch_timeshard(
     finals, and the exact correction ``y_t = α^(t+1)·y_in + y_t(0)``
     re-bases the local series.  Everything else is elementwise and stays
     on-device.  Tolerance: the re-basing reassociates the float
-    recurrence — same ~1e-6 class as the associative scan the TPU batch
-    path already uses (``_ema_scan`` docstring); the CPU bit-exact pin
-    stays on the unsharded paths.
+    recurrence — same ~1e-6 class as the associative scan
+    (``_ema_scan`` docstring); the CPU bit-exact pin stays on the
+    unsharded paths.
 
     Returns (vis_local, carry-out PostState of THIS chunk) — the global
     final state is the LAST device's carry-out; the renderer selects it
@@ -330,8 +315,8 @@ def postprocess_column(
     ``global_agc=True`` couples the AGC reference across all leading
     (channel) axes — one brightness for the whole multichannel display.
     Under a channel-sharded mesh this max is the pipeline's one genuine
-    cross-chip collective (GSPMD inserts the all-reduce over ICI;
-    SURVEY.md §5.8).
+    cross-device collective (GSPMD inserts the all-reduce; SURVEY.md
+    §5.8).
     """
     # no time axis here: every peak_db axis is a channel axis the
     # global option couples (broadcast_to(max) ≡ the old max·ones —

@@ -40,19 +40,9 @@ def apply_lut(values: jnp.ndarray, table: jnp.ndarray) -> jnp.ndarray:
     """values in [0,1] (...,) + (256,4) uint8 table → (..., 4) uint8 RGBA
     [NS: "colormap LUT"].
 
-    Nearest lookup.  Large rasters on TPU route through the one-hot MXU
-    matmul kernel (emspec.dsp.pallas.lut) — per-pixel gathers are the
-    measured TPU trap (2.2 ms for a 1437×512 raster; the kernel is
-    bit-equal, see its docstring).  Small lookups (streaming single
-    columns) and other backends keep the plain gather, which XLA fuses
-    with the preceding post chain."""
-    import jax
-
+    Nearest lookup as a plain gather from the 1 KB table, which XLA
+    fuses with the preceding post chain."""
     idx = jnp.clip(
         jnp.round(values * (LUT_SIZE - 1)).astype(jnp.int32), 0, LUT_SIZE - 1
     )
-    npix = int(np.prod(idx.shape)) if idx.shape else 1
-    if jax.default_backend() == "tpu" and npix >= 16384:
-        from emspec.dsp.pallas.lut import lut_lookup
-        return lut_lookup(idx, table)
     return table[idx]

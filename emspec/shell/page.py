@@ -54,7 +54,7 @@ PAGE = r"""<!DOCTYPE html>
   <div id="minimized">minimized (Max-for-Live) — restore in Ableton</div>
 </div>
 <div id="panel">
-  <h1>EM-Spec <span style="color:#7a5de0">tpu</span></h1>
+  <h1>EM-Spec <span style="color:#7a5de0">jax</span></h1>
   <div class="ver" id="version"></div>
 
   <label>Preset</label>

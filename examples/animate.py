@@ -9,10 +9,6 @@ import pathlib
 import sys
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
-import jax
-
-jax.config.update("jax_platforms", "cpu")   # demo runs anywhere; drop on TPU
-
 from emspec import Settings, animate_frames, read_apng, write_apng
 from emspec.io import synth
 

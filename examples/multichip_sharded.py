@@ -1,7 +1,8 @@
 """Channel sharding over a device mesh (SURVEY.md §2.5/§5.8): same
 pipeline, channels spread across devices, zero code change — GSPMD
 inserts the one global-AGC all-reduce.  Runs on an 8-device virtual CPU
-mesh here; on a TPU pod slice, channel_mesh() picks up the real chips."""
+mesh here; on a multi-GPU host, drop the lines that force the
+virtual CPU mesh and channel_mesh() picks up the real cards."""
 import os
 import pathlib
 import sys

@@ -5,10 +5,6 @@ import pathlib
 import sys
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
-import jax
-
-jax.config.update("jax_platforms", "cpu")
-
 import numpy as np
 
 from emspec import Settings, Stream

@@ -1,8 +1,8 @@
 """Offline rendering sharded over the TIME axis (SURVEY.md §2.5): a long
 recording's spectrogram computed N× faster on an N-device mesh — the
 other parallel seam next to channel sharding (multichip_sharded.py).
-Runs on an 8-device virtual CPU mesh here; on a TPU pod slice,
-channel_mesh() picks up the real chips.
+Runs on an 8-device virtual CPU mesh here; on a multi-GPU host, drop
+the lines that force it and channel_mesh() picks up the real cards.
 
 Design (emspec/parallel.py TimeParallelRenderer): each device analyzes
 its own column span plus a ±R frame halo (halo RECOMPUTE — boundary

@@ -90,7 +90,8 @@ def test_dryrun_multichip_smoke(n):
     per-device shard shapes scale as ch/n."""
     import jax
     import sys
-    sys.path.insert(0, "/root/repo")
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import __graft_entry__ as g
     if len(jax.devices()) < n:
         pytest.skip(f"needs {n} devices")

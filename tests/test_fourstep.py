@@ -1,4 +1,4 @@
-"""Four-step MXU-matmul FFT tests: accuracy vs float64, pipeline parity
+"""Four-step matmul FFT tests: accuracy vs float64, pipeline parity
 vs the XLA-FFT path, and the documented tolerance-level streaming≡batch
 contract for fft_impl="fourstep" (bit-exactness is guaranteed only for
 "xla"; see Settings.fft_impl)."""

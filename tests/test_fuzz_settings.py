@@ -40,7 +40,6 @@ def _random_settings(rng) -> Settings:
         brightness=float(rng.uniform(0.1, 1)),
         low_end_boost=float(rng.uniform(0.5, 10)),
         freq_scale=float(rng.uniform(0.5, 3)),
-        scatter=str(rng.choice(["segment_sum", "auto"])),
         fft_method=str(rng.choice(["stencil", "direct"])),
     )
 

@@ -158,40 +158,6 @@ def test_full_process_shapes_and_dtype():
     assert 0.0 <= float(jnp.min(vis)) and float(jnp.max(vis)) <= 1.0
 
 
-@pytest.mark.slow
-def test_mixed_scatter_matches_global_segment_sum():
-    """The per-bank mixed scatter (batch multibank TPU path: each bank
-    uses its own reach) must agree with the global segment_sum scatter
-    to f32 summation-order rounding — same deposits, same cells, bank
-    sums applied per bank instead of one interleaved pass."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    s = _mini_settings(mode="enhanced", multires_sizes=(2048, 1024, 512),
-                      hop=128)
-    pipe = Pipeline(s)
-    x = jnp.asarray(synth.chirp(80.0, 10_000.0, 0.25, SR)
-                    + synth.tone(440.0, 0.25, SR, amplitude=0.3))
-    t = pipe.num_columns(x.shape[-1])
-    p = pipe.params()
-    banked = pipe._deposits_banked(pipe._bank_inputs(x, t), p)
-    rows_i = jnp.concatenate([a.reshape(a.shape[:-1] + (-1,))
-                              for a in banked[0]], -1)
-    delta = jnp.concatenate([a.reshape(a.shape[:-1] + (-1,))
-                             for a in banked[1]], -1)
-    contrib = jnp.concatenate([a.reshape(a.shape[:-1] + (-1,))
-                               for a in banked[2]], -1)
-    want = np.asarray(pipe._scatter_segment_sum(rows_i, delta, contrib, t, ()))
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(pipe._scatter_mixed(banked, t, ()))
-    # per-bank reaches really differ (the point of the decomposition)
-    assert ({int(np.round(n / (2.0 * pipe.hop))) for n in pipe.sizes}
-            != {pipe.reach})
-    scale = max(want.max(), 1e-12)
-    # pallas banks carry the 2-pass bf16-split bound (≤2⁻¹⁶ relative,
-    # scatter.py) on top of f32 order differences
-    np.testing.assert_allclose(got / scale, want / scale, atol=3e-5)
-
-
 # -------------------------------------------------------------- note names
 def test_note_naming():
     assert frequency_to_note(440.0) == ("A", 4, pytest.approx(0.0, abs=1e-9))
@@ -203,33 +169,3 @@ def test_note_naming():
     _, _, c = frequency_to_note(442.0)
     assert c > 0
     assert "A4" in describe_frequency(440.0)
-
-
-@pytest.mark.slow
-def test_mixed_scatter_multichannel_lead_dims():
-    """_scatter_mixed must handle leading channel dims: per-bank pallas
-    histograms flatten the lead internally, segment_sum banks vmap —
-    both must land on the same (ch, t, rows) grid as the global
-    segment_sum scatter."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    s = _mini_settings(mode="enhanced", multires_sizes=(2048, 1024, 512),
-                      hop=128, channels=2)
-    pipe = Pipeline(s)
-    x0 = synth.chirp(80.0, 10_000.0, 0.2, SR)
-    x = jnp.stack([jnp.asarray(x0),
-                   jnp.asarray(0.5 * synth.tone(440.0, 0.2, SR))])
-    t = pipe.num_columns(x.shape[-1])
-    p = pipe.params()
-    banked = pipe._deposits_banked(pipe._bank_inputs(x, t), p)
-    cat = lambda parts: jnp.concatenate(
-        [a.reshape(a.shape[:-1] + (-1,)) for a in parts], axis=-1)
-    want = np.asarray(pipe._scatter_segment_sum(
-        cat(banked[0]), cat(banked[1]), cat(banked[2]), t, (2,)))
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(pipe._scatter_mixed(banked, t, (2,)))
-    assert got.shape == want.shape == (2, t, pipe.rows)
-    scale = max(want.max(), 1e-12)
-    np.testing.assert_allclose(got / scale, want / scale, atol=3e-5)
-    # channels really differ (no cross-channel mixing)
-    assert not np.allclose(got[0], got[1])

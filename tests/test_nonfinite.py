@@ -7,8 +7,7 @@ process lifetime: NaN |X|² → NaN ``peak_db`` → NaN AGC reference EMA
 fix scrubs non-finite power at the single site both natural paths
 share (``Pipeline._bank_power``, mirrored in ``tests/oracle.py`` per
 the invariants contract).  Enhanced mode was already immune via the
-deposit validity mask (``pipeline.py _deposits_banked`` /
-``dsp/pallas/fft4.py``); tests here pin that immunity explicitly so a
+deposit validity mask (``pipeline.py _deposits_banked``); tests here pin that immunity explicitly so a
 refactor can't lose the mask.
 
 Real capture drivers and corrupt WAV floats can deliver non-finite

@@ -12,8 +12,24 @@ from emspec.io import synth
 
 SR = 48_000
 
-needs_mesh = pytest.mark.skipif(len(jax.devices()) < 2,
-                                reason="needs multiple devices")
+
+
+# device counts are read inside fixtures, never at import: every xdist
+# worker must collect the same tests
+@pytest.fixture
+def _mesh_devices():
+    if len(jax.devices()) < 2:
+        pytest.skip("needs multiple devices")
+
+
+@pytest.fixture
+def _mesh_4_devices():
+    if len(jax.devices()) < 4:
+        pytest.skip("needs a 2×2+ (ch × t) mesh")
+
+
+needs_mesh = pytest.mark.usefixtures("_mesh_devices")
+needs_4dev = pytest.mark.usefixtures("_mesh_4_devices")
 
 
 def _settings(**kw):
@@ -75,9 +91,8 @@ def test_sharded_stream_matches_batch():
     donated carry must reproduce the sharded batch output.  Under GSPMD
     the partitioner may reassociate float ops between the two programs,
     so the single-chip CPU bit-exact pin relaxes here to ulp-level
-    (measured max 6e-8 abs on vis — the same tolerance class as the TPU
-    contract; rgba may flip one 1/255 quantum where vis sits on a LUT
-    boundary)."""
+    (measured max 6e-8 abs on vis; rgba may flip one 1/255 quantum
+    where vis sits on a LUT boundary)."""
     from emspec.parallel import ShardedStream, stream_signal_sharded
 
     n_dev = len(jax.devices())
@@ -393,10 +408,6 @@ def test_time_parallel_render_uneven_tail():
     np.testing.assert_allclose(np.asarray(vis), np.asarray(vis1), atol=1e-5)
     np.testing.assert_allclose(np.asarray(st.smooth),
                                np.asarray(st1.smooth), atol=1e-5)
-
-
-needs_4dev = pytest.mark.skipif(len(jax.devices()) < 4,
-                                reason="needs a 2×2+ (ch × t) mesh")
 
 
 @needs_4dev

@@ -121,11 +121,11 @@ def test_apply_lut():
 
 @pytest.mark.slow
 def test_associative_post_matches_sequential_within_tolerance():
-    """The TPU batch path's associative EMA scans (postprocess_batch
-    associative=True) must agree with the sequential bit-exact path to
-    reassociation rounding: ~log2(t)*eps relative, an order under the
-    display's 1/255 quantum.  (On CPU the default stays sequential; this
-    forces the associative branch for coverage.)"""
+    """The associative EMA scans (postprocess_batch associative=True,
+    the GPU's choice at display-scale t) must agree with the sequential
+    bit-exact path to reassociation rounding: ~log2(t)*eps relative, an
+    order under the display's 1/255 quantum.  (On CPU the default stays
+    sequential; this forces the associative branch for coverage.)"""
     from emspec.post.chain import postprocess_batch
 
     rng = np.random.default_rng(7)
@@ -160,8 +160,8 @@ def test_batch_default_is_sequential_on_cpu():
 
 def test_empty_time_axis_associative_path():
     """t = 0 (audio shorter than one frame) through the ASSOCIATIVE branch
-    — the TPU default — must behave like the length-0 lax.scan: empty vis,
-    carry unchanged (ADVICE round 2: ys[-1] raised IndexError)."""
+    must behave like the length-0 lax.scan: empty vis, carry unchanged
+    (ys[-1] once raised IndexError)."""
     from emspec.post.chain import postprocess_batch
 
     rows = 32
@@ -176,3 +176,15 @@ def test_empty_time_axis_associative_path():
                                       np.asarray(st.smooth))
         np.testing.assert_array_equal(np.asarray(st_out.agc_ref),
                                       np.asarray(st.agc_ref))
+
+
+def test_apply_lut_display_raster_equals_numpy_gather():
+    """A whole display raster (1437 columns × 512 rows, the multires 4 s
+    shape) through apply_lut equals the plain numpy table gather."""
+    rng = np.random.default_rng(11)
+    vis = rng.random((1437, 512)).astype(np.float32)
+    vis[0, :4] = [0.0, 1.0, -0.5, 2.0]               # clip both ends
+    table = lut("inferno")
+    got = np.asarray(apply_lut(jnp.asarray(vis), jnp.asarray(table)))
+    idx = np.clip(np.round(vis * (LUT_SIZE - 1)), 0, LUT_SIZE - 1)
+    np.testing.assert_array_equal(got, table[idx.astype(np.int64)])

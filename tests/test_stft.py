@@ -76,58 +76,6 @@ def test_stencil_method_matches_direct(n, hop):
                                    err_msg=name)
 
 
-@pytest.mark.parametrize("n,hop,k_lo,k_hi", [
-    (2048, 512, 6, 104),      # multires mid bank after band slicing
-    (8192, 2048, 0, 43),      # low bank — k_lo=0 exercises the k=-1 column
-])
-def test_pruned_dft_matches_fft_slice(n, hop, k_lo, k_hi):
-    """The pruned-DFT GEMM (band-sliced banks) must match the full-FFT
-    stencil path on the kept bins to float32 GEMM rounding, including the
-    Hermitian edge bin handled by evaluating the DFT at k = -1."""
-    from emspec.dsp.frame import frame_signal
-    from emspec.dsp.stft import stft_triple_stencil, stft_triple_stencil_sliced
-
-    x = jnp.asarray(synth.multitone([60.0, 440.0, 3000.0], 0.3)
-                    + synth.noise(0.3, seed=9, amplitude=0.02))
-    frames = frame_signal(x, n, hop)
-    full = stft_triple_stencil(frames)
-    sliced = stft_triple_stencil_sliced(frames, k_lo, k_hi)
-    for name, a, b in zip(("X_h", "X_th", "X_dh"), full, sliced):
-        want = np.asarray(a)[..., k_lo:k_hi]
-        scale = max(float(np.abs(want).max()), 1e-9)
-        np.testing.assert_allclose(np.asarray(b) / scale, want / scale,
-                                   atol=1e-4 * np.sqrt(n / 512),
-                                   err_msg=name)
-
-
-@pytest.mark.parametrize("n,hop,k_lo,k_hi", [
-    (8192, 128, 0, 43),       # multires low bank at the default 128 hop
-    (2048, 128, 6, 104),      # mid bank
-    (2048, 384, 6, 104),      # hop ∤ n: exercises the zero-padded tail
-])
-def test_pruned_blocks_matches_sliced(n, hop, k_lo, k_hi):
-    """The block-GEMM pruned STFT (framing folded into the contraction;
-    the batch multires hot path) must match the framed pruned GEMM to
-    f32 accumulation-order rounding — same matrix, m partial sums
-    instead of one K-loop."""
-    from emspec.dsp.frame import frame_signal, num_frames, signal_blocks
-    from emspec.dsp.stft import (stft_triple_stencil_blocks,
-                                 stft_triple_stencil_sliced)
-
-    x = jnp.asarray(synth.multitone([60.0, 440.0, 3000.0], 0.3)
-                    + synth.noise(0.3, seed=11, amplitude=0.02))
-    t = num_frames(x.shape[-1], n, hop)
-    want = stft_triple_stencil_sliced(frame_signal(x, n, hop), k_lo, k_hi)
-    got = stft_triple_stencil_blocks(signal_blocks(x, n, hop), t, n,
-                                     k_lo, k_hi)
-    for name, a, b in zip(("X_h", "X_th", "X_dh"), want, got):
-        assert np.asarray(b).shape == np.asarray(a).shape
-        scale = max(float(np.abs(np.asarray(a)).max()), 1e-9)
-        np.testing.assert_allclose(np.asarray(b) / scale,
-                                   np.asarray(a) / scale, atol=2e-6,
-                                   err_msg=name)
-
-
 def test_batched_channels():
     x = np.stack([synth.tone(440.0, 0.1), synth.tone(880.0, 0.1)])
     S = np.asarray(power_spectrogram(jnp.asarray(x), 1024, 256))
@@ -135,3 +83,20 @@ def test_batched_channels():
     sr = 48_000
     assert abs(S[0][2].argmax() - 440.0 * 1024 / sr) <= 1.0
     assert abs(S[1][2].argmax() - 880.0 * 1024 / sr) <= 1.0
+
+
+@pytest.mark.parametrize("shape", [(512,), (6, 512), (2, 5, 1024), (3, 2, 4, 256)],
+                         ids=["1-D", "frames", "channels", "lead-dims"])
+def test_direct_triple_window_matches_oracle(shape):
+    """The direct method's broadcast windowing (one (3, ..., n) stack,
+    used by Pipeline for fft_method="direct") equals frames × each
+    float64 oracle window."""
+    from emspec.dsp.stft import windowed_triple
+
+    rng = np.random.default_rng(len(shape))
+    frames = rng.standard_normal(shape).astype(np.float32)
+    got = np.asarray(windowed_triple(jnp.asarray(frames)))
+    assert got.shape == (3,) + shape
+    for k, w in enumerate(oracle.windows(shape[-1])):
+        np.testing.assert_allclose(got[k], frames * w, rtol=2e-6,
+                                   atol=2e-6 * shape[-1])

@@ -439,7 +439,7 @@ def test_live_state_pauses_stream(tmp_path):
 @pytest.mark.slow
 def test_streaming_equals_batch_direct_method(fft_method):
     """Both FFT formulations must hold the streaming == batch contract
-    (regression: the direct path once diverged to a TPU-only kernel with
+    (regression: the direct path once diverged to a separate kernel with
     no streaming coverage)."""
     s = _settings(mode="enhanced", fft_method=fft_method)
     x = synth.chirp(150.0, 6000.0, 0.15, SR)
